@@ -1,9 +1,9 @@
 """Retrieval from compressed space (paper §3.2), twin of ``repro.core.retrieval``.
 
-This slice serves sparse-space cosine from an fp32 ``SparseIndex``: the
-codes of N candidates plus precomputed norms and reciprocal norms, which
-the fused retrieval kernel folds into its scoring epilogue.  The
-quantized index format is not ported yet.
+Sparse-space cosine is served from an fp32 ``SparseIndex`` or from a
+``QuantizedIndex`` (int8 values, int16/int32 indices, f32 per-row
+scales): the codes of N candidates plus precomputed norms and reciprocal
+norms, which the fused retrieval kernels fold into their scoring.
 """
 from __future__ import annotations
 
@@ -13,7 +13,9 @@ from typing import NamedTuple, Optional, Union
 import torch
 
 from repro_torch.core import sae
-from repro_torch.core.quantized_codes import codes_checksum, content_checksum
+from repro_torch.core.quantized_codes import (
+    QuantizedCodes, codes_checksum, content_checksum, dequantize_codes, quantize_codes,
+)
 from repro_torch.core.types import SparseCodes
 from repro_torch.errors import (
     EngineConfigError, IndexIntegrityError, InvalidCodesError,
@@ -59,7 +61,24 @@ class SparseIndex(NamedTuple):
     checksum: Optional[int] = None
 
 
-def index_checksum(index: SparseIndex) -> int:
+class QuantizedIndex(NamedTuple):
+    """A retrieval index whose codes stay in the compound-compressed
+    format on the device (``QuantizedCodes``).  The fields mirror
+    ``SparseIndex``; every norm is computed on the dequantized values, so
+    serving it is bit-identical to serving ``dequantize_index(index)``."""
+
+    codes: QuantizedCodes
+    sparse_norms: torch.Tensor
+    recon_norms: Optional[torch.Tensor]
+    inv_sparse_norms: Optional[torch.Tensor] = None
+    inv_recon_norms: Optional[torch.Tensor] = None
+    checksum: Optional[int] = None
+
+
+Index = Union[SparseIndex, QuantizedIndex]
+
+
+def index_checksum(index: Index) -> int:
     """The content CRC of an index (codes + every norm array), over the
     same bytes as the JAX package's ``index_checksum``."""
     base = codes_checksum(index.codes)
@@ -72,7 +91,7 @@ def index_checksum(index: SparseIndex) -> int:
     return zlib.crc32(f"{base:08x}:{extra:08x}".encode())
 
 
-def verify_index(index: SparseIndex, *, require: bool = True) -> bool:
+def verify_index(index: Index, *, require: bool = True) -> bool:
     """True when the stored checksum matches the content; a mismatch
     raises ``IndexIntegrityError``, and so does a missing checksum when
     ``require`` (else False)."""
@@ -92,23 +111,10 @@ def verify_index(index: SparseIndex, *, require: bool = True) -> bool:
     return True
 
 
-def build_index(
-    codes: SparseCodes,
-    params: Optional[sae.Params] = None,
-    *,
-    quantize: bool = False,
-) -> SparseIndex:
-    """Precompute per-candidate norms and their reciprocals.  With
-    ``params`` also the reconstructed-space norms ‖W_dec s_c‖, decoded
-    DECODE_CHUNK rows at a time.  Code indices outside [0, h) and non-finite
-    values raise: the retrieve kernel skips the latents no query holds,
-    which equals adding their zero products only for finite values."""
-    if quantize:
-        raise NotImplementedError("build_index(quantize=True): the quantized "
-                                  "index is not yet ported")
+def _check_codes(codes: SparseCodes) -> None:
     if codes.indices.dtype != torch.int32 or codes.values.dtype != torch.float32:
         raise InvalidCodesError(
-            "SparseIndex needs float32 values and int32 indices, got "
+            "build_index needs float32 values and int32 indices, got "
             f"{codes.values.dtype} / {codes.indices.dtype}")
     if codes.indices.numel() and not (
             0 <= int(codes.indices.min()) and int(codes.indices.max()) < codes.dim):
@@ -117,6 +123,35 @@ def build_index(
             f"{int(codes.indices.min())}, max {int(codes.indices.max())}")
     if not bool(torch.isfinite(codes.values).all()):
         raise InvalidCodesError("code values must be finite")
+
+
+def build_index(
+    codes: SparseCodes,
+    params: Optional[sae.Params] = None,
+    *,
+    quantize: bool = False,
+) -> Index:
+    """Precompute per-candidate norms and their reciprocals.  With
+    ``params`` also the reconstructed-space norms ‖W_dec s_c‖, decoded
+    DECODE_CHUNK rows at a time.  Code indices outside [0, h) and non-finite
+    values raise: the retrieve kernels skip the latents no query holds,
+    which equals adding their zero products only for finite values.
+
+    ``quantize=True`` returns a ``QuantizedIndex``: the codes quantized by
+    ``quantize_codes`` and every norm computed on their dequantized
+    values, so it serves exactly as ``dequantize_index`` of it."""
+    _check_codes(codes)
+    if quantize:
+        q_codes = quantize_codes(codes)
+        base = build_index(dequantize_codes(q_codes), params)
+        idx = QuantizedIndex(
+            codes=q_codes,
+            sparse_norms=base.sparse_norms,
+            recon_norms=base.recon_norms,
+            inv_sparse_norms=base.inv_sparse_norms,
+            inv_recon_norms=base.inv_recon_norms,
+        )
+        return idx._replace(checksum=index_checksum(idx))
     sparse_norms = torch.linalg.vector_norm(codes.values, dim=-1)
     recon_norms = inv_recon_norms = None
     if params is not None:
@@ -134,6 +169,35 @@ def build_index(
         inv_recon_norms=inv_recon_norms,
     )
     return idx._replace(checksum=index_checksum(idx))
+
+
+def dequantize_index(index: QuantizedIndex) -> SparseIndex:
+    """The fp32 ``SparseIndex`` a ``QuantizedIndex`` serves identically
+    to: dequantized codes, the stored norms, a fresh checksum."""
+    idx = SparseIndex(
+        codes=dequantize_codes(index.codes),
+        sparse_norms=index.sparse_norms,
+        recon_norms=index.recon_norms,
+        inv_sparse_norms=index.inv_sparse_norms,
+        inv_recon_norms=index.inv_recon_norms,
+    )
+    return idx._replace(checksum=index_checksum(idx))
+
+
+def index_codes_f32(index: Index) -> SparseCodes:
+    """The index's codes as fp32 ``SparseCodes``, dequantized if needed
+    (for evaluation; serving keeps quantized codes quantized)."""
+    if isinstance(index.codes, QuantizedCodes):
+        return dequantize_codes(index.codes)
+    return index.codes
+
+
+def index_nbytes(index: Index) -> int:
+    """Bytes of every tensor the index holds (codes, norms, reciprocals):
+    what it occupies on its device."""
+    tensors = [*index.codes[:-1], index.sparse_norms, index.recon_norms,
+               index.inv_sparse_norms, index.inv_recon_norms]
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def score_dense(database: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

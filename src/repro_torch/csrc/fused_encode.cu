@@ -5,25 +5,29 @@
 // 2 MiB, far above the 227 KB a block may use here.  So this kernel runs the
 // exact grouped algorithm of core/topk.py::abs_topk_sparse_grouped instead:
 //
-//   launch 1, encode_tiles: grid (ceil(B/BM), h/BH), with (BM, BH) = (64, 256)
-//     for large batches and (16, 128) where the large tiles would leave SMs
-//     idle (a 64-query request: 128 blocks instead of 16).  A block computes
-//     its (BM, BH) pre-activation tile x̄[rows] @ W[:, tile] + b[tile] with a
-//     register-tiled fp32 FMA loop over d (SIMT fp32: no TF32, no tensor
-//     cores; every tile sums over d in the same order, so both shapes give
-//     the same bits), then keeps the k largest |pre| of each row of its tile
-//     by k rounds of first-argmax.  Each row of the tile lies across the 32
-//     lanes of one warp, so the selection runs on registers and warp
-//     shuffles alone.  Out go (value, global index) candidates, (B, h/BH, k).
-//   launch 2, encode_merge: one warp a row merges the h/BH*k candidates into
-//     the final k, by |v| descending, then index ascending: exactly
-//     lax.top_k's order over the whole row.
+//   launch 1, encode_tiles: grid (ceil(B/BM), ceil(h/BH)), with (BM, BH) =
+//     (64, 256) for large batches and (16, 128) where the large tiles would
+//     leave SMs idle (a 64-query request: 128 blocks instead of 16).  A block
+//     computes its (BM, BH) pre-activation tile x̄[rows] @ W[:, tile] +
+//     b[tile] with a register-tiled fp32 FMA loop over d (SIMT fp32: no TF32,
+//     no tensor cores; every tile sums over d in the same order, so both
+//     shapes give the same bits), then keeps the kt = min(k, BH) largest |pre|
+//     of each row of its tile by rounds of first-argmax, sorted.  Each row of
+//     the tile lies across the 32 lanes of one warp, so the selection runs on
+//     registers and warp shuffles alone.  Latents past h (a ragged last tile)
+//     are masked in the loads and the selection; a tile with fewer than kt
+//     latents ends its list with empty places (index INT_MAX).  Out go
+//     (value, global index) lists, (B, G, kt).
+//   launch 2.., encode_merge: one warp a row merges up to 256 sorted lists
+//     into one by |v| descending, then index ascending: exactly lax.top_k's
+//     order over the whole row.  Wider rows (more than 256 tiles) take more
+//     passes, each merging groups of 256 lists, until one list of k is left.
 //
-// The (B, h) pre-activations never reach device memory; only the candidate
-// scratch (h/BH*k*8 bytes a row) and the (B, k) codes do.  Ragged B and a d
-// that is no multiple of 16 are masked in the loads.  The wrapper
-// (kernels/fused_encode/kernel.py) checks h % 256 == 0, 1 <= k <= 256 and
-// that a row's candidates fit the merge (at most 1024).
+// |v| is compared through an order key in which NaN ranks above every
+// number, as lax.top_k ranks it, so a NaN pre-activation is selected first,
+// lowest index first.  The (B, h) pre-activations never reach device
+// memory; only the lists (G·kt·8 bytes a row) and the (B, k) codes do.
+// Ragged B and a d that is no multiple of 16 are masked in the loads.
 //
 // What bounds it: at B = 64, d = 768, h = 4096 the product is 0.40 GFLOP,
 // 6.0 us at the card's 67 TFLOP/s fp32, against 3.8 us for its 12.8 MB of
@@ -38,11 +42,19 @@ namespace {
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int BK = 16;           // depth of one shared-memory stage
-constexpr int MERGE_MAXC = 32;   // candidates per lane in the merge
+constexpr int HEADS = 8;         // lists a lane holds in the merge
+constexpr int GROUP = 32 * HEADS;  // lists one merge warp takes
 constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned NO_KEY = 0u;  // an empty place: below every |v|
 
-// (|v| desc, index asc): the order of lax.top_k over |pre|.
-__device__ __forceinline__ bool better(float a, int ia, float b, int ib) {
+// Order key of |v| >= 0: NaN above every number (lax.top_k's order).
+__device__ __forceinline__ unsigned akey(float v) {
+  const float a = fabsf(v);
+  return a != a ? 0xffffffffu : (__float_as_uint(a) | 0x80000000u);
+}
+
+// (key desc, index asc): the order of lax.top_k over |pre|.
+__device__ __forceinline__ bool better(unsigned a, int ia, unsigned b, int ib) {
   return a > b || (a == b && ia < ib);
 }
 
@@ -53,7 +65,7 @@ template <int TM, int CPL>
 __global__ void __launch_bounds__(THREADS)
 encode_tiles(const float* __restrict__ x, const float* __restrict__ w,
              const float* __restrict__ bias, float* __restrict__ cand_v,
-             int* __restrict__ cand_i, int B, int d, int h, int k) {
+             int* __restrict__ cand_i, int B, int d, int h, int kt) {
   constexpr int BM = TM * WARPS, BH = CPL * 32;
   __shared__ float As[BK][BM + 4];
   __shared__ __align__(16) float Bs[BK][BH];
@@ -83,7 +95,7 @@ encode_tiles(const float* __restrict__ x, const float* __restrict__ w,
       const int e = tid + u * THREADS;
       const int kk = e / BH, c = e % BH;
       const int gk = k0 + kk;
-      Bs[kk][c] = gk < d ? w[(size_t)gk * h + col0 + c] : 0.f;
+      Bs[kk][c] = (gk < d && col0 + c < h) ? w[(size_t)gk * h + col0 + c] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -106,10 +118,12 @@ encode_tiles(const float* __restrict__ x, const float* __restrict__ w,
 
   int col[CPL];
   float bj[CPL];
+  unsigned outside = 0;          // columns past h never enter the selection
 #pragma unroll
   for (int j = 0; j < CPL; ++j) {
     col[j] = col0 + 128 * (j / 4) + lane * 4 + (j % 4);
-    bj[j] = bias[col[j]];
+    bj[j] = col[j] < h ? bias[col[j]] : 0.f;
+    if (col[j] >= h) outside |= 1u << j;
   }
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -117,76 +131,96 @@ encode_tiles(const float* __restrict__ x, const float* __restrict__ w,
     float v[CPL];
 #pragma unroll
     for (int j = 0; j < CPL; ++j) v[j] = acc[i][j] + bj[j];
-    unsigned used = 0;
-    const size_t base = ((size_t)row * G + g) * k;
-    for (int r = 0; r < k; ++r) {
-      float ba = -1.f, bv = 0.f;
+    unsigned used = outside;
+    const size_t base = ((size_t)row * G + g) * kt;
+    for (int r = 0; r < kt; ++r) {
+      unsigned bk = NO_KEY;
+      float bv = 0.f;
       int bc = INT_MAX, bjj = 0;
 #pragma unroll
       for (int j = 0; j < CPL; ++j) {
-        const float a = fabsf(v[j]);
-        if (!((used >> j) & 1u) && a > ba) { ba = a; bv = v[j]; bc = col[j]; bjj = j; }
+        const unsigned kj = akey(v[j]);
+        if (!((used >> j) & 1u) && kj > bk) { bk = kj; bv = v[j]; bc = col[j]; bjj = j; }
       }
-      float wa = ba;
+      unsigned wk = bk;
       int wc = bc;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
-        const float oa = __shfl_xor_sync(FULL, wa, off);
+        const unsigned ok = __shfl_xor_sync(FULL, wk, off);
         const int oc = __shfl_xor_sync(FULL, wc, off);
-        if (better(oa, oc, wa, wc)) { wa = oa; wc = oc; }
+        if (better(ok, oc, wk, wc)) { wk = ok; wc = oc; }
       }
-      const int owner = ((wc - col0) & 127) >> 2;
+      const bool found = wk != NO_KEY;     // warp-uniform
+      const int owner = found ? ((wc - col0) & 127) >> 2 : 0;
       const float sv = __shfl_sync(FULL, bv, owner);
-      if (lane == owner) used |= 1u << bjj;
-      if (lane == 0 && row < B) { cand_v[base + r] = sv; cand_i[base + r] = wc; }
+      if (found && lane == owner) used |= 1u << bjj;
+      if (lane == 0 && row < B) { cand_v[base + r] = found ? sv : 0.f; cand_i[base + r] = wc; }
     }
   }
 }
 
+// One warp a row merges the lists [g*GROUP, min(G, (g+1)*GROUP)) of its
+// row, (B, G, L) sorted by (|v| desc, index asc) with empty places
+// (index INT_MAX) last, into the first Lo entries of output list g of
+// (B, Go, Lo).  Indices are distinct across a row's lists (the tiles are
+// disjoint), so the order is total.
 __global__ void __launch_bounds__(256)
-encode_merge(const float* __restrict__ cand_v, const int* __restrict__ cand_i,
+encode_merge(const float* __restrict__ in_v, const int* __restrict__ in_i,
              float* __restrict__ out_v, int* __restrict__ out_i,
-             int B, int C, int k) {
+             int B, int G, int L, int Lo) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
   if (row >= B) return;  // whole warps leave together
-  const float* rv = cand_v + (size_t)row * C;
-  const int* ri = cand_i + (size_t)row * C;
-  float v[MERGE_MAXC];
-  int c[MERGE_MAXC];
-  unsigned used = 0;
+  const int g = blockIdx.y, Go = gridDim.y;
+  const int first = g * GROUP, lists = min(G - first, GROUP);
+  const float* rv = in_v + ((size_t)row * G + first) * L;
+  const int* ri = in_i + ((size_t)row * G + first) * L;
+  int pos[HEADS], hc[HEADS];
+  unsigned hk[HEADS];
+  float hv[HEADS];
 #pragma unroll
-  for (int j = 0; j < MERGE_MAXC; ++j) {
-    const int p = lane + 32 * j;
-    const bool ok = p < C;
-    v[j] = ok ? rv[p] : 0.f;
-    c[j] = ok ? ri[p] : INT_MAX;
-    if (!ok) used |= 1u << j;
+  for (int m = 0; m < HEADS; ++m) {
+    const int l = lane + 32 * m;
+    pos[m] = 0;
+    hc[m] = l < lists ? ri[(size_t)l * L] : INT_MAX;
+    hv[m] = l < lists ? rv[(size_t)l * L] : 0.f;
+    hk[m] = hc[m] == INT_MAX ? NO_KEY : akey(hv[m]);
   }
-  for (int r = 0; r < k; ++r) {
-    float ba = -1.f, bv = 0.f;
-    int bc = INT_MAX, bj = 0;
+  float* ov = out_v + ((size_t)row * Go + g) * Lo;
+  int* oi = out_i + ((size_t)row * Go + g) * Lo;
+  for (int r = 0; r < Lo; ++r) {
+    unsigned bk = NO_KEY;
+    int bc = INT_MAX, bm = 0;
+    float bv = 0.f;
 #pragma unroll
-    for (int j = 0; j < MERGE_MAXC; ++j) {
-      const float a = fabsf(v[j]);
-      if (!((used >> j) & 1u) && better(a, c[j], ba, bc)) {
-        ba = a; bv = v[j]; bc = c[j]; bj = j;
-      }
-    }
-    float wa = ba;
+    for (int m = 0; m < HEADS; ++m)
+      if (better(hk[m], hc[m], bk, bc)) { bk = hk[m]; bc = hc[m]; bv = hv[m]; bm = m; }
+    unsigned wk = bk;
     int wc = bc, wl = lane;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      const float oa = __shfl_xor_sync(FULL, wa, off);
+      const unsigned ok = __shfl_xor_sync(FULL, wk, off);
       const int oc = __shfl_xor_sync(FULL, wc, off);
       const int ol = __shfl_xor_sync(FULL, wl, off);
-      if (better(oa, oc, wa, wc) || (oa == wa && oc == wc && ol < wl)) {
-        wa = oa; wc = oc; wl = ol;
+      if (better(ok, oc, wk, wc) || (ok == wk && oc == wc && ol < wl)) {
+        wk = ok; wc = oc; wl = ol;
       }
     }
     const float sv = __shfl_sync(FULL, bv, wl);
-    if (lane == wl) used |= 1u << bj;
-    if (lane == 0) { out_v[(size_t)row * k + r] = sv; out_i[(size_t)row * k + r] = wc; }
+    if (lane == 0) { ov[r] = wk == NO_KEY ? 0.f : sv; oi[r] = wk == NO_KEY ? INT_MAX : wc; }
+    if (wk == NO_KEY) continue;
+    if (lane == wl) {
+#pragma unroll
+      for (int m = 0; m < HEADS; ++m) {
+        if (m != bm) continue;
+        const int l = lane + 32 * m;
+        pos[m] += 1;
+        const bool live = pos[m] < L;
+        hc[m] = live ? ri[(size_t)l * L + pos[m]] : INT_MAX;
+        hv[m] = live ? rv[(size_t)l * L + pos[m]] : 0.f;
+        hk[m] = hc[m] == INT_MAX ? NO_KEY : akey(hv[m]);
+      }
+    }
   }
 }
 
@@ -194,27 +228,52 @@ encode_merge(const float* __restrict__ cand_v, const int* __restrict__ cand_i,
 
 extern "C" {
 
-// x (B, d) already L2-normalised, w (d, h), b (h,); scratch cand_v/cand_i
-// (B, h/bh, k); out_v/out_i (B, k).  bh is the tile width: 256 (64-row
-// tiles) or 128 (16-row tiles).  Returns cudaGetLastError().
+// x (B, d) already L2-normalised, w (d, h), b (h,); out_v/out_i (B, k).
+// bh is the tile width: 256 (64-row tiles) or 128 (16-row tiles); G =
+// ceil(h / bh) tiles keep kt = min(k, bh) each.  Scratch: list_v/list_i
+// (B, G, kt) and, where G > 256, merge_v/merge_i (B, ceil(G / 256),
+// min(k, 256 * kt)); where G == 1 the tiles write out_v/out_i directly.
+// Returns the first CUDA error, or 0.
 int fused_encode_launch(const float* x, const float* w, const float* b,
-                        float* cand_v, int* cand_i, float* out_v, int* out_i,
-                        int B, int d, int h, int k, int bh, void* stream) {
+                        float* list_v, int* list_i, float* merge_v, int* merge_i,
+                        float* out_v, int* out_i, int B, int d, int h, int k, int bh,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int G = h / bh;
+  if (B < 1 || d < 1 || k < 1 || k > h) return cudaErrorInvalidValue;
+  int G = (h + bh - 1) / bh;
+  int L = k < bh ? k : bh;
+  float* tv = G == 1 ? out_v : list_v;
+  int* ti = G == 1 ? out_i : list_i;
   if (bh == 256) {
-    encode_tiles<8, 8><<<dim3((B + 63) / 64, G), THREADS, 0, s>>>(
-        x, w, b, cand_v, cand_i, B, d, h, k);
+    encode_tiles<8, 8><<<dim3((B + 63) / 64, G), THREADS, 0, s>>>(x, w, b, tv, ti, B, d, h, L);
   } else if (bh == 128) {
-    encode_tiles<2, 4><<<dim3((B + 15) / 16, G), THREADS, 0, s>>>(
-        x, w, b, cand_v, cand_i, B, d, h, k);
+    encode_tiles<2, 4><<<dim3((B + 15) / 16, G), THREADS, 0, s>>>(x, w, b, tv, ti, B, d, h, L);
   } else {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  encode_merge<<<(B + 7) / 8, 256, 0, s>>>(cand_v, cand_i, out_v, out_i, B, G * k, k);
-  return cudaGetLastError();
+  // Merge passes, alternating between the two scratch pairs; each pass's
+  // lists take no more room than the last, so each pair holds them.
+  const float* src_v = tv;
+  const int* src_i = ti;
+  bool to_merge = true;
+  while (G > 1) {
+    const int Go = (G + GROUP - 1) / GROUP;
+    const long long room = (long long)L * (G < GROUP ? G : GROUP);
+    const int Lo = Go == 1 ? k : (int)(room < k ? room : k);
+    float* dv = Go == 1 ? out_v : (to_merge ? merge_v : list_v);
+    int* di = Go == 1 ? out_i : (to_merge ? merge_i : list_i);
+    encode_merge<<<dim3((B + 7) / 8, Go), 256, 0, s>>>(src_v, src_i, dv, di, B, G, L, Lo);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    src_v = dv;
+    src_i = di;
+    to_merge = !to_merge;
+    G = Go;
+    L = Lo;
+  }
+  return cudaSuccess;
 }
 
 const char* fused_encode_error_string(int code) {

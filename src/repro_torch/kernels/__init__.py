@@ -10,10 +10,10 @@ from repro_torch.kernels.sparse_dot import kernel as _sparse_dot
 
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel since the last reset."""
-    return {"fused_encode": _fused_encode.launches,
-            "fused_retrieve_sparse_q": _sparse_dot.launches}
+    return {"fused_encode": _fused_encode.launches, **_sparse_dot.launches}
 
 
 def reset_launch_counts() -> None:
     _fused_encode.launches = 0
-    _sparse_dot.launches = 0
+    for name in _sparse_dot.launches:
+        _sparse_dot.launches[name] = 0

@@ -10,12 +10,13 @@ What bounds it on an H100: the encoder product, 2·B·d·h operations
 (128, h) on-chip accumulator does not fit a block's 227 KB here, so the
 design tiles h: each block computes a (64, 256) pre-activation tile, or a
 (16, 128) one where a small batch would leave SMs idle, in fp32 FMAs (no
-TF32), and keeps the k largest |pre| of each row of its tile; a second
-launch merges the per-tile candidate lists of each row.
-That is the exact grouped abs-top-k of ``core/topk.py``, so indices
-match the plain version wherever no two |pre| are within rounding, with
-ties to the lowest index.  The (B, h) pre-activations never reach device
-memory.
+TF32), and keeps the min(k, tile width) largest |pre| of each row of its
+tile; a second launch merges the per-tile lists of each row (more
+launches where a row has more than 256 tiles).  That is the exact
+grouped abs-top-k of ``core/topk.py``, so indices match the plain version
+wherever no two |pre| are within rounding, with ties to the lowest index
+and NaN first.  Any h >= k >= 1: a ragged last tile is masked in the
+kernel.  The (B, h) pre-activations never reach device memory.
 """
 from __future__ import annotations
 
@@ -25,21 +26,17 @@ import torch
 
 from repro_torch.kernels import _build
 
-BH = 256          # widest tile; h must be a multiple
-MAX_CAND = 1024   # candidates one merge warp holds per row: (h / bh) * k
+GROUP = 256       # sorted lists one merge pass takes per output list
 
-_ARGTYPES = {"fused_encode_launch": [ctypes.c_void_p] * 7
+_ARGTYPES = {"fused_encode_launch": [ctypes.c_void_p] * 9
              + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
 
 
-def tile_width(B: int, h: int, k: int, sms: int) -> int:
+def tile_width(B: int, h: int, sms: int) -> int:
     """The tile width bh: 256 latents by 64 rows, unless that grid would
-    not give every SM two blocks and (16-row, 128-latent) tiles can hold
-    the row's candidates (k <= 128, (h/128)*k <= MAX_CAND).  Both widths
-    compute the same exact abs-top-k."""
-    if -(-B // 64) * (h // 256) >= 2 * sms or k > 128 or (h // 128) * k > MAX_CAND:
-        return 256
-    return 128
+    not give every SM two blocks; then 128 latents by 16 rows.  Both
+    widths compute the same exact abs-top-k."""
+    return 256 if -(-B // 64) * -(-h // 256) >= 2 * sms else 128
 
 launches = 0      # kernel launches since the last reset
 
@@ -61,17 +58,18 @@ def fused_encode_cuda(
     if w_enc.shape[0] != d or b_enc.shape[0] != h:
         raise ValueError(f"shape mismatch: x {tuple(x_norm.shape)}, w_enc "
                          f"{tuple(w_enc.shape)}, b_enc {tuple(b_enc.shape)}")
-    if h % BH:
-        raise ValueError(f"fused_encode kernel needs h % {BH} == 0, got h={h}")
-    if not 1 <= k <= BH or (h // BH) * k > MAX_CAND:
-        raise ValueError(f"fused_encode kernel needs 1 <= k <= {BH} and "
-                         f"(h/{BH})*k <= {MAX_CAND}: h={h}, k={k}")
+    if not 1 <= k <= h:
+        raise ValueError(f"fused_encode kernel needs 1 <= k <= h: h={h}, k={k}")
     if B < 1 or d < 1:
         raise ValueError(f"empty input: B={B}, d={d}")
-    bh = tile_width(B, h, k, torch.cuda.get_device_properties(dev).multi_processor_count)
-    groups = h // bh
-    cand_v = torch.empty(B, groups, k, dtype=torch.float32, device=dev)
-    cand_i = torch.empty(B, groups, k, dtype=torch.int32, device=dev)
+    bh = tile_width(B, h, torch.cuda.get_device_properties(dev).multi_processor_count)
+    groups, kt = -(-h // bh), min(k, bh)
+    list_v = torch.empty(B, groups, kt, dtype=torch.float32, device=dev)
+    list_i = torch.empty(B, groups, kt, dtype=torch.int32, device=dev)
+    wide = groups > GROUP                  # a second merge pass is needed
+    merge_shape = (B, -(-groups // GROUP), min(k, GROUP * kt)) if wide else (0,)
+    merge_v = torch.empty(merge_shape, dtype=torch.float32, device=dev)
+    merge_i = torch.empty(merge_shape, dtype=torch.int32, device=dev)
     out_v = torch.empty(B, k, dtype=torch.float32, device=dev)
     out_i = torch.empty(B, k, dtype=torch.int32, device=dev)
     lib = _build.load("fused_encode", _ARGTYPES)
@@ -79,8 +77,9 @@ def fused_encode_cuda(
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.fused_encode_launch(
             x_norm.data_ptr(), w_enc.data_ptr(), b_enc.data_ptr(),
-            cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
-            out_i.data_ptr(), B, d, h, k, bh, stream)
+            list_v.data_ptr(), list_i.data_ptr(), merge_v.data_ptr(),
+            merge_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+            B, d, h, k, bh, stream)
     _build.check(lib, "fused_encode", status)
     launches += 1
     return out_v, out_i

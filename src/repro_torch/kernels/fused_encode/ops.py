@@ -40,8 +40,9 @@ def fused_encode_chunked(
     use_kernel="auto",
 ) -> SparseCodes:
     """``fused_encode`` over ``chunk`` rows at a time, for catalog-sized
-    batches: the kernel's candidate scratch (h/256·k·8 bytes a row) and
-    the plain version's (chunk, h) pre-activations stay bounded."""
+    batches: the kernel's per-tile lists (about h/256·min(k, 256)·8 bytes
+    a row) and the plain version's (chunk, h) pre-activations stay
+    bounded."""
     parts = [fused_encode(x[i:i + chunk], w_enc, b_enc, k, use_kernel=use_kernel)
              for i in range(0, x.shape[0], chunk)]
     return SparseCodes(values=torch.cat([p.values for p in parts]),

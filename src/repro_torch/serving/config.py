@@ -1,17 +1,18 @@
 """Typed engine configuration (twin of ``repro.serving.config``).
 
 ``EngineConfig`` keeps every field of the JAX package's config and its
-field-space checks.  The port serves the default request so far: sparse
-mode, exact precision, a single stage, one device, an fp32
-``SparseIndex``.  Any other value of a field is a typed "not yet ported"
-error the moment the config exists.
+field-space checks.  The port serves sparse mode, a single stage, one
+device, from an fp32 ``SparseIndex`` at exact precision or from a
+``QuantizedIndex`` at exact or int8 precision.  Any other value of a
+field is a typed "not yet ported" error the moment the config exists.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
 
-from repro_torch.core.retrieval import SparseIndex
+from repro_torch.core.quantized_codes import QuantizedCodes
+from repro_torch.core.retrieval import QuantizedIndex, SparseIndex
 from repro_torch.errors import EngineConfigError
 
 PRECISIONS = ("exact", "int8")
@@ -21,12 +22,16 @@ STAGE1S = ("auto", "device", "host")
 
 
 def check_precision(index, precision: str) -> str:
-    """Validate a scoring precision against an index format."""
+    """Validate a scoring precision against an index format: "exact" for
+    every index, "int8" (approximate int8 × int8 scoring) only for a
+    ``QuantizedIndex``."""
     if precision not in PRECISIONS:
         raise EngineConfigError(
             f"unknown precision {precision!r} (expected one of {PRECISIONS})")
-    if precision == "int8":
-        raise EngineConfigError("precision='int8' is not yet ported")
+    if precision == "int8" and not isinstance(index.codes, QuantizedCodes):
+        raise EngineConfigError(
+            "precision='int8' requires a QuantizedIndex "
+            "(build_index(..., quantize=True)); got fp32 codes")
     return precision
 
 
@@ -79,22 +84,21 @@ class EngineConfig:
                 raise EngineConfigError(
                     f"candidate_fraction must be in (0, 1]: {self.candidate_fraction}")
         for field, value, served in (("mode", self.mode, "sparse"),
-                                     ("precision", self.precision, "exact"),
                                      ("stage", self.stage, "single"),
                                      ("mesh", self.mesh, None)):
             if value != served:
                 raise EngineConfigError(
                     f"{field}={value!r} is not yet ported (the port serves "
-                    "mode='sparse', precision='exact', stage='single', mesh=None)")
+                    "mode='sparse', stage='single', mesh=None)")
         if self.k is not None and self.k < 1:
             raise EngineConfigError(f"k must be >= 1: {self.k}")
 
     def validate(self, index, params=None) -> None:
         """The checks that need the index and params."""
-        if not isinstance(index, SparseIndex):
+        if not isinstance(index, (SparseIndex, QuantizedIndex)):
             raise EngineConfigError(
-                f"{type(index).__name__} is not yet ported; the port serves an "
-                "fp32 SparseIndex (build_index(codes))")
+                f"{type(index).__name__} is not yet ported; the port serves a "
+                "SparseIndex or a QuantizedIndex (build_index(codes[, quantize=True]))")
         if params is not None and index.codes.dim != params["w_enc"].shape[1]:
             raise EngineConfigError(
                 "params/index latent-dim mismatch: w_enc encodes into "

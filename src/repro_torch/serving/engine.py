@@ -6,21 +6,24 @@
 
 On a CUDA device a request runs two hand-written kernels:
 
-    fused_encode  ->  fused_retrieve_sparse_q
+    fused_encode  ->  fused_retrieve_sparse_q                (fp32 SparseIndex)
+                      fused_retrieve_quantized_sparse_q      (QuantizedIndex, exact)
+                      fused_retrieve_quantized_mxu_sparse_q  (QuantizedIndex, int8)
 
 so only the (Q, k) query codes and the (Q, n) results reach device
 memory: the encoder's abs-top-k stays on chip (no (Q, h)
-pre-activations) and the retrieve kernel densifies the query panel in
-shared memory.  On the CPU, or with ``use_kernel=False``, the plain
-PyTorch versions (``sae.encode`` + ``retrieve_sparse_q_ref``) serve the
-same contract.
+pre-activations) and the retrieve kernel builds a sparse query panel
+instead of a dense one.  A quantized index stays int8/int16 on the
+device; the exact path dequantizes in the kernel and serves what the
+dequantized index serves, bit for bit.  On the CPU, or with
+``use_kernel=False``, the plain PyTorch versions (``sae.encode`` and the
+``*_ref`` retrieves) serve the same contract.
 
 The request is factored as in the JAX package: ``prep_query`` turns
 codes into the mode's query representation plus ‖q‖, and
 ``retrieve_prepped`` runs the streaming score+select and folds ‖q‖ into
-the (Q, n) panel.  This slice serves sparse mode from an fp32
-``SparseIndex`` on one device; other configurations raise "not yet
-ported" (``serving.config``).
+the (Q, n) panel.  Sparse mode is served on one device; other
+configurations raise "not yet ported" (``serving.config``).
 """
 from __future__ import annotations
 
@@ -31,12 +34,17 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core import sae
-from repro_torch.core.retrieval import NORM_EPS, SparseIndex, kernel_path
+from repro_torch.core.quantized_codes import QuantizedCodes
+from repro_torch.core.retrieval import NORM_EPS, Index, kernel_path
 from repro_torch.core.types import SparseCodes
 from repro_torch.device import resolve_device
 from repro_torch.errors import EngineConfigError, InvalidQueryError
 from repro_torch.kernels.fused_encode import fused_encode
-from repro_torch.kernels.sparse_dot import fused_retrieve_sparse_q, retrieve_sparse_q_ref
+from repro_torch.kernels.sparse_dot import (
+    fused_retrieve_quantized_mxu_sparse_q, fused_retrieve_quantized_sparse_q,
+    fused_retrieve_sparse_q, retrieve_quantized_mxu_sparse_q_ref,
+    retrieve_quantized_sparse_q_ref, retrieve_sparse_q_ref,
+)
 from repro_torch.serving.config import EngineConfig, check_precision
 from repro_torch.serving.response import RetrievalResponse, ServingStatus
 
@@ -46,8 +54,12 @@ _INT_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64, torch.uint8)
 
 
 def path_name(engine: "RetrievalEngine") -> str:
-    """The canonical serving-path name of an engine's configuration."""
-    return f"fp32-{'kernel' if engine.use_fused else 'ref'}"
+    """The canonical serving-path name of an engine's configuration:
+    ``{fp32|quantized|int8}-{kernel|ref}``."""
+    quantized = isinstance(engine.index.codes, QuantizedCodes)
+    fmt = ("int8" if engine.precision == "int8"
+           else "quantized" if quantized else "fp32")
+    return f"{fmt}-{'kernel' if engine.use_fused else 'ref'}"
 
 
 def validate_topn(n, n_candidates: int) -> int:
@@ -114,7 +126,7 @@ class PreppedQuery(NamedTuple):
         return self.values is not None
 
 
-def mode_inv_norms(index: SparseIndex, mode: str) -> torch.Tensor:
+def mode_inv_norms(index: Index, mode: str) -> torch.Tensor:
     """The index's reciprocal candidate norms for a scoring mode."""
     if mode != "sparse":
         raise EngineConfigError(f"mode={mode!r} is not yet ported")
@@ -124,7 +136,7 @@ def mode_inv_norms(index: SparseIndex, mode: str) -> torch.Tensor:
     return inv
 
 
-def prep_query(index: SparseIndex, q: SparseCodes, mode: str,
+def prep_query(index: Index, q: SparseCodes, mode: str,
                params: Optional[sae.Params] = None) -> PreppedQuery:
     """Query codes -> the mode's scoring representation."""
     if mode != "sparse":
@@ -139,20 +151,26 @@ def prep_query(index: SparseIndex, q: SparseCodes, mode: str,
 
 def select_retrieve_fn(*, sparse_query: bool, quantized: bool,
                        int8_scoring: bool, use_fused: bool):
-    """The kernel-generation dispatch table.  The port has its fp32
-    sparse-query row: the CUDA kernel or its plain version."""
-    if int8_scoring or quantized or not sparse_query:
+    """The kernel-generation dispatch table: (query representation, index
+    format, scoring precision, backend) -> the streaming retrieve.  The
+    port has the sparse-query column, each row a CUDA kernel or its plain
+    version; dense queries (reconstructed mode) are not yet ported."""
+    if not sparse_query:
         raise EngineConfigError(
-            "only the fp32 sparse-query retrieve is ported "
+            "the dense-query retrieves are not yet ported "
             f"(sparse_query={sparse_query}, quantized={quantized}, "
-            f"int8_scoring={int8_scoring}); the others are not yet ported")
-    if use_fused:
-        return functools.partial(fused_retrieve_sparse_q, use_kernel=True)
-    return retrieve_sparse_q_ref
+            f"int8_scoring={int8_scoring})")
+    if int8_scoring:
+        kernel, plain = fused_retrieve_quantized_mxu_sparse_q, retrieve_quantized_mxu_sparse_q_ref
+    elif quantized:
+        kernel, plain = fused_retrieve_quantized_sparse_q, retrieve_quantized_sparse_q_ref
+    else:
+        kernel, plain = fused_retrieve_sparse_q, retrieve_sparse_q_ref
+    return functools.partial(kernel, use_kernel=True) if use_fused else plain
 
 
 def retrieve_prepped(
-    index: SparseIndex,
+    index: Index,
     pq: PreppedQuery,
     n: int,
     *,
@@ -161,17 +179,21 @@ def retrieve_prepped(
     precision: str = "exact",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Single-device streaming score+select over a prepped query batch;
-    folds ‖q‖ into the (Q, n) panel only."""
+    folds ‖q‖ into the (Q, n) panel only.  A ``QuantizedIndex`` streams
+    its int8/int16 codes and row scales into the quantized retrieve
+    (exact) or, at ``precision="int8"``, the int8-scoring one."""
     check_precision(index, precision)
     if inv_norms is None:
         inv_norms = mode_inv_norms(index, "sparse")
     squeeze = pq.norm.ndim == 0
-    fn = select_retrieve_fn(sparse_query=pq.is_sparse, quantized=False,
-                            int8_scoring=False, use_fused=use_fused)
+    quantized = isinstance(index.codes, QuantizedCodes)
+    cand = (index.codes.q_values, index.codes.indices, index.codes.scales) if quantized \
+        else (index.codes.values, index.codes.indices)
+    fn = select_retrieve_fn(sparse_query=pq.is_sparse, quantized=quantized,
+                            int8_scoring=precision == "int8", use_fused=use_fused)
     qv = pq.values[None] if squeeze else pq.values
     qi = pq.indices[None] if squeeze else pq.indices
-    vals, ids = fn(index.codes.values, index.codes.indices, inv_norms,
-                   qv, qi, index.codes.dim, n=n)
+    vals, ids = fn(*cand, inv_norms, qv, qi, index.codes.dim, n=n)
     norm = pq.norm[None] if squeeze else pq.norm
     scores = vals / torch.clamp(norm[..., None], min=NORM_EPS)
     if squeeze:
@@ -184,8 +206,8 @@ def _on_device(t: Optional[torch.Tensor], dev: torch.device):
 
 
 class RetrievalEngine:
-    """One object owns the serving lifecycle: an fp32 ``SparseIndex``,
-    the SAE params, one ``EngineConfig`` and a device.  Construct once,
+    """One object owns the serving lifecycle: a ``SparseIndex`` or a
+    ``QuantizedIndex``, the SAE params, one ``EngineConfig`` and a device.  Construct once,
     ``RetrievalEngine(index, params, config=EngineConfig(...),
     device="cuda")``, then serve ``retrieve_dense(x, n)``.
 
@@ -195,7 +217,7 @@ class RetrievalEngine:
     a CUDA device; True on the CPU raises; False runs the plain version.
     """
 
-    def __init__(self, index: SparseIndex, params: Optional[sae.Params] = None,
+    def __init__(self, index: Index, params: Optional[sae.Params] = None,
                  *, config: Optional[EngineConfig] = None, device="cuda"):
         cfg = EngineConfig() if config is None else config
         cfg.validate(index, params)
@@ -208,9 +230,10 @@ class RetrievalEngine:
         self.precision = cfg.precision
         self.params = (None if params is None
                        else {key: _on_device(val, dev) for key, val in params.items()})
+        codes = index.codes
         self.index = index._replace(
-            codes=SparseCodes(_on_device(index.codes.values, dev),
-                              _on_device(index.codes.indices, dev), index.codes.dim),
+            codes=codes._replace(**{f: _on_device(getattr(codes, f), dev)
+                                    for f in codes._fields if f != "dim"}),
             sparse_norms=_on_device(index.sparse_norms, dev),
             recon_norms=_on_device(index.recon_norms, dev),
             inv_sparse_norms=_on_device(index.inv_sparse_norms, dev),

@@ -22,6 +22,7 @@ from repro.serving import EngineConfig as JEngineConfig
 from repro.serving import RetrievalEngine as JRetrievalEngine
 from repro_torch.core import sae as tsae
 from repro_torch.core.retrieval import build_index
+from repro_torch.core.types import SparseCodes
 from repro_torch.errors import EngineConfigError, InvalidQueryError
 from repro_torch.kernels.fused_encode import fused_encode_chunked
 from repro_torch.serving import EngineConfig, RetrievalEngine
@@ -110,8 +111,7 @@ def test_engine_rejects_bad_requests(port_engine):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mode", "reconstructed"), ("precision", "int8"), ("stage", "two_stage"),
-    ("mesh", object()),
+    ("mode", "reconstructed"), ("stage", "two_stage"), ("mesh", object()),
 ])
 def test_config_off_the_slice_is_not_yet_ported(field, value):
     with pytest.raises(EngineConfigError, match="not yet ported"):
@@ -127,7 +127,7 @@ def test_config_keeps_the_field_checks():
         EngineConfig(stage="two_stage", candidate_fraction=0.0)
     assert EngineConfig().replace(k=4).k == 4
     with pytest.raises(EngineConfigError, match="not yet ported"):
-        select_retrieve_fn(sparse_query=True, quantized=True, int8_scoring=False,
+        select_retrieve_fn(sparse_query=False, quantized=True, int8_scoring=False,
                            use_fused=False)
 
 
@@ -139,3 +139,35 @@ def test_engine_kernel_switch_on_cpu(port_engine):
     with pytest.raises(EngineConfigError, match="latent-dim mismatch"):
         RetrievalEngine(port_engine.index, {**port_engine.params,
                                             "w_enc": torch.zeros(D, 2 * H)}, device="cpu")
+
+
+@pytest.mark.parametrize("fmt", ["fp32", "quantized", "int8"])
+def test_nan_queries_rank_as_lax_top_k(slice_case, fmt):
+    """A query row of NaNs and a row with one NaN (which normalisation
+    spreads over the row) encode to NaN codes on latents 0..k-1; every
+    candidate holding one of them scores NaN, and NaN ranks above every
+    number, lowest id first, as in ``lax.top_k``.  Held against the JAX
+    engine on its jnp path on the same index."""
+    jp, params, _, jcodes, queries = slice_case
+    q = queries[:4].copy()
+    q[0] = np.nan
+    q[1, 3] = np.nan
+    quantize, precision = fmt != "fp32", "int8" if fmt == "int8" else "exact"
+    jengine = JRetrievalEngine(j_build_index(jcodes, quantize=quantize), jp,
+                               config=JEngineConfig(use_kernel=False, precision=precision))
+    want = jengine.retrieve_dense(jnp.asarray(q), NTOP)
+    assert np.isnan(np.asarray(want.scores)[:2]).all()
+    codes = SparseCodes(torch.tensor(np.asarray(jcodes.values)),
+                        torch.tensor(np.asarray(jcodes.indices)), H)
+    port = RetrievalEngine(build_index(codes, quantize=quantize),
+                           tsae.params_from_numpy(params, device="cpu"),
+                           config=EngineConfig(precision=precision), device="cpu")
+    got = port.retrieve_dense(torch.tensor(q), NTOP)
+    np.testing.assert_array_equal(got.ids[:2].numpy(), np.asarray(want.ids)[:2])
+    assert torch.isnan(got.scores[:2]).all()
+    np.testing.assert_allclose(got.scores[2:].numpy(), np.asarray(want.scores)[2:],
+                               rtol=1e-6, atol=0)
+    codes_q = port.encode_queries(torch.tensor(q[:2]))
+    assert codes_q.indices.tolist() == [list(range(K))] * 2
+    if fmt == "int8":                       # a NaN query scale: every score NaN
+        assert got.ids[:2].tolist() == [list(range(NTOP))] * 2

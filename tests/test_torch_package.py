@@ -97,22 +97,32 @@ def test_kernels_refuse_cpu_tensors():
 
 def test_kernel_sizing_rules():
     from repro_torch.kernels.fused_encode.kernel import tile_width
-    from repro_torch.kernels.sparse_dot.kernel import num_splits, panel_rows
+    from repro_torch.kernels.sparse_dot.kernel import Plan, num_splits, plan
 
-    assert tile_width(64, 4096, 32, 132) == 128          # a request: 16-row tiles
-    assert tile_width(65536, 4096, 32, 132) == 256       # a catalog chunk: 64-row
-    assert tile_width(64, 4096, 200, 132) == 256         # k too wide for 128
+    assert tile_width(64, 4096, 132) == 128              # a request: 16-row tiles
+    assert tile_width(65536, 4096, 132) == 256           # a catalog chunk: 64-row
+    assert tile_width(64, 1000, 132) == 128              # ragged h
+    assert tile_width(20000, 49152, 132) == 256
 
-    assert panel_rows(64, 4096, 32, 32) == 64            # a request: one panel
-    assert panel_rows(64, 4096, 256, 32) == 64           # n at its cap still fits
-    assert panel_rows(13, 4096, 32, 32) == 13
-    assert panel_rows(64, 20000, 256, 32) == 42          # wide h: fewer rows
-    assert panel_rows(64, 4096, 32, 2048) == 6           # wide query codes
+    # bq rows a block; the running lists, then the h + 1 segment starts,
+    # in shared memory where they fit beside the tile sums and entries
+    assert plan(64, 4096, 32, 32) == Plan(64, True, True)      # a request
+    assert plan(13, 4096, 32, 32) == Plan(13, True, True)
+    assert plan(64, 4096, 256, 32) == Plan(64, True, True)
+    assert plan(64, 4096, 1000, 32) == Plan(64, False, True)   # any n: lists in memory
+    assert plan(64, 49152, 32, 32) == Plan(64, True, True)
+    assert plan(64, 70000, 32, 32) == Plan(64, True, False)    # wide h: seg in memory
+    assert plan(13, 70000, 32, 32) == Plan(13, True, True)
+    assert plan(64, 70000, 1000, 32) == Plan(64, False, True)
+    assert plan(1, 4096, 20000, 32) == Plan(1, True, True)
+    assert plan(64, 4096, 32, 2048) == Plan(13, False, False)  # wide query codes
     with pytest.raises(ValueError, match="shared memory"):
-        panel_rows(64, 60000, 32, 32)
-    assert num_splits(1 << 20, 64, 64, 132) == 264       # 1 panel x 264 = 264 blocks
-    assert num_splits(1000, 13, 13, 132) == 4            # one split per 256-row tile
-    assert num_splits(10 ** 9, 4096, 64, 132) == 5
+        plan(64, 4096, 32, 30000)
+    assert num_splits(1 << 20, 64, 64, 132, 32) == 264   # 1 panel x 264 = 264 blocks
+    assert num_splits(1000, 13, 13, 132, 16) == 4        # one split per 256-row tile
+    assert num_splits(10 ** 9, 4096, 64, 132, 32) == 5
+    assert num_splits(200_003, 64, 64, 132, 1000) == 200  # S * n stays within N
+    assert num_splits(200_003, 64, 64, 132, 200_003) == 1
 
 
 def test_build_paths_stay_in_the_repo():
@@ -123,3 +133,29 @@ def test_build_paths_stay_in_the_repo():
         f"{name}.cu" for name in _build.EXTRA_FLAGS)
     assert "-fmad=false" in _build.EXTRA_FLAGS["sparse_dot"]
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
+
+
+def test_quantized_kernels_refuse_cpu_tensors():
+    from repro_torch.errors import EngineConfigError
+    from repro_torch.kernels.sparse_dot import (
+        fused_retrieve_quantized_mxu_sparse_q, fused_retrieve_quantized_sparse_q,
+    )
+    from repro_torch.kernels.sparse_dot.kernel import (
+        fused_retrieve_quantized_mxu_sparse_q_cuda, fused_retrieve_quantized_sparse_q_cuda,
+    )
+
+    q8, idx = torch.ones(10, 4, dtype=torch.int8), torch.zeros(10, 4, dtype=torch.int16)
+    scales, inv = torch.ones(10), torch.ones(10)
+    qv, qi = torch.ones(2, 4), torch.zeros(2, 4, dtype=torch.int32)
+    for ops_fn, cuda_fn in ((fused_retrieve_quantized_sparse_q,
+                             fused_retrieve_quantized_sparse_q_cuda),
+                            (fused_retrieve_quantized_mxu_sparse_q,
+                             fused_retrieve_quantized_mxu_sparse_q_cuda)):
+        with pytest.raises(EngineConfigError, match="needs a CUDA device"):
+            ops_fn(q8, idx, scales, inv, qv, qi, 256, n=3, use_kernel=True)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            cuda_fn(q8, idx, scales, inv, qv, qi, 256, 3)
+        s, i = ops_fn(q8, idx, scales, inv, qv, qi, 256, n=3)   # "auto" on the CPU: plain
+        assert i.tolist() == [[0, 1, 2], [0, 1, 2]]
+        with pytest.raises(ValueError, match="exceeds candidate count"):
+            ops_fn(q8, idx, scales, inv, qv, qi, 256, n=11)

@@ -161,7 +161,7 @@ def test_build_index_rejects_what_it_does_not_serve():
                                                        dtype=torch.int32), 8)
     with pytest.raises(InvalidCodesError, match=r"outside \[0, 8\)"):
         build_index(codes)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(InvalidCodesError, match=r"outside \[0, 8\)"):
         build_index(codes, quantize=True)
     nan_values = torch.ones(2, 2)
     nan_values[1, 0] = float("inf")
